@@ -35,7 +35,7 @@ def main():
     ap.add_argument("--solver", default="schur",
                     choices=["schur", "dense", "minres", "gmres"],
                     help="schur = exact latent elimination + Jacobi-CG "
-                         "(the scalable TPU default; 'dense' mirrors the "
+                         "(the scalable default; 'dense' mirrors the "
                          "reference's MUMPS exactness on small problems)")
     ap.add_argument("-pv", "--paraview", action="store_true")
     ap.add_argument("--geom", default=None, choices=[None, "tet"],

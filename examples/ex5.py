@@ -33,7 +33,7 @@ def main():
     ap.add_argument("--solver", default="schur",
                     choices=["schur", "dense", "minres", "gmres"],
                     help="schur = lumped-latent block preconditioner + "
-                         "MINRES on the saddle system (scalable TPU "
+                         "MINRES on the saddle system (scalable "
                          "default for the H1^dim latent)")
     ap.add_argument("-pv", "--paraview", action="store_true")
     ap.add_argument("--profile", default=None, metavar="LOGDIR",

@@ -1,6 +1,6 @@
 """AD point-functions: scalar energies and their derivatives via JAX.
 
-This is the TPU-native replacement for the reference's entire AD core
+This is the JAX replacement for the reference's entire AD core
 (/root/reference/src/ad_native.{hpp,cpp}):
 
 - ``ADReal_t``/``AD2Real_t`` dual and nested-dual types (ad_native.hpp:41-49)
@@ -57,15 +57,14 @@ def admin(a, b):
 
 
 # ---------------------------------------------------------------------------
-# Mosaic-safe log-determinant.
+# Elementwise log-determinant.
 #
 # The derivative core works on the d*d SCALAR COMPONENTS of F, not on a
-# matrix: inside the fused Pallas element-Jacobian kernel the point energy
-# is vmapped over an element-lane axis, and Mosaic cannot lower the minor-
-# dim reshape ([lanes, d*d] -> [lanes, d, d]) or batched tiny dot_generals
-# that a matrix formulation drags into the nested-jvp graph — and its
-# lowering of the raw nested-jvp division chains of log(det F) itself is
-# miscompiled outright.  Component-level custom_jvp rules keep the whole
+# matrix: the point energy is vmapped over [ne, nq], and a matrix
+# formulation drags a minor-dim reshape ([.., d*d] -> [.., d, d]) and
+# batched tiny dot_generals into the nested-jvp graph, next to the raw
+# nested-jvp division chains of log(det F).  Component-level custom_jvp
+# rules keep the whole
 # differentiated region pure elementwise arithmetic: the JVP of logdet is
 # an inner product with F^{-T}'s components, and the JVP of F^{-T} is the
 # product form -F^{-T} dF^T F^{-T}, unrolled over indices at trace time.
@@ -156,9 +155,8 @@ def logdet_flat(v, d: int):
     """log(det F) from the flat row-major [d*d] vector of F's entries.
 
     This is the form hyperelastic energies should use on their GRAD|VECTOR
-    input slice (already flat, ad_intg layout): it avoids the
-    reshape-to-matrix that Mosaic cannot lower inside the fused Pallas
-    kernel's vmapped AD graph.
+    input slice (already flat, ad_intg layout): it avoids a
+    reshape-to-matrix inside the vmapped AD graph.
     """
     return _CORES[d][0](*(v[..., k] for k in range(d * d)))
 
@@ -166,8 +164,8 @@ def logdet_flat(v, d: int):
 def logdet(F):
     """log(det F) for d<=3 with derivative rules closed under nesting.
 
-    Use this (not ``jnp.log(jnp.linalg.det(F))``) in energies so they are
-    eligible for the fused Pallas assembly kernel on TPU; see
+    Use this (not ``jnp.log(jnp.linalg.det(F))``) in energies so their
+    derivatives stay elementwise arithmetic; see
     :func:`logdet_flat` for the reshape-free variant energies should
     prefer on their flat input slice.
     """
@@ -176,7 +174,7 @@ def logdet(F):
 
 
 def inv_t(F):
-    """F^{-T} for d<=3; derivatives are Mosaic-safe product forms."""
+    """F^{-T} for d<=3; derivatives are elementwise product forms."""
     d = F.shape[-1]
     comps = _CORES[d][1](
         *(F[..., i, j] for i in range(d) for j in range(d))
@@ -232,8 +230,8 @@ class ADFunction:
     # A subclass MAY implement ``gradient_closed(x, p) -> [n]`` and/or
     # ``hessian_closed(x, p) -> [n, n]`` (symmetric) as hand-derived
     # closed forms of the SAME energy.  The integrator uses them for the
-    # batched assembly hot loop when present (the per-qp AD Hessian is
-    # VPU-bound; the built-in energies' closed forms cut its FLOPs ~5-10x
+    # batched assembly hot loop when enabled (the per-qp AD Hessian is
+    # compute-bound; the built-in energies' closed forms cut its FLOPs ~5-10x
     # — cf. the reference's nested-dual hot loop ad_intg.hpp:260-334).
     # They are golden-tested against the AD derivatives of ``energy`` and
     # can be disabled globally with MFEM_AD_TPU_CLOSED=0 — user-defined
@@ -244,12 +242,9 @@ class ADFunction:
     # ``hessian_closed_entries(x, p) -> list[list[h_ab]]`` is the
     # UN-STACKED form of ``hessian_closed``: the n x n entries as plain
     # expressions over the indexables ``x[k]`` / ``p[name][i]`` with no
-    # jnp.stack.  The fused Pallas kernel consumes it with [nq, blk]
-    # TILES as the "scalars" — hand-tiled straight-line code is the only
-    # form Mosaic compiles well (the vmapped/stacked forms measured 7.5M
-    # elem/s vs XLA's 177M at the p1/2D headline; see
-    # ops/fused_jacobian.py).  Entries may be constants or sub-shaped
-    # (broadcastable); the consumer broadcasts.
+    # jnp.stack.  ``hessian_closed`` is built from it, and tests use both
+    # as oracles for the AD Hessian.  Entries may be constants or
+    # sub-shaped (broadcastable); the consumer broadcasts.
     hessian_closed_entries = None
 
 
@@ -293,9 +288,8 @@ class ADVectorFunction:
 class MassEnergy(ADFunction):
     """0.5 ||x||^2 (ad_native.hpp:413-420).
 
-    Scalar-unrolled (no dot_general/reshape): eligible for the fused
-    Pallas kernel, where Mosaic only lowers elementwise per-qp graphs.
-    XLA re-fuses the unrolled form on the batched path at no cost.
+    Scalar-unrolled (no dot_general/reshape): the per-qp graph is pure
+    elementwise arithmetic, which XLA fuses on the batched path.
     """
 
     def energy(self, x, p):
@@ -326,7 +320,7 @@ class DiffusionEnergy(ADFunction):
                 )
 
     def energy(self, g, p):
-        # scalar-unrolled (fused-Pallas-eligible); see MassEnergy
+        # scalar-unrolled; see MassEnergy
         d = self.dim
         K = p.get("K")
         gg = sum(g[k] * g[k] for k in range(d))
@@ -406,7 +400,7 @@ class LinearElasticityEnergy(ADFunction):
         self.add_parameter("mu", mu)
 
     def energy(self, gradu, p):
-        # scalar-unrolled (fused-Pallas-eligible); see MassEnergy
+        # scalar-unrolled; see MassEnergy
         d = self.dim
         div = sum(gradu[i * d + i] for i in range(d))
         symsq = 0.0
@@ -474,9 +468,7 @@ class NeoHookeanEnergy(ADFunction):
         lam, mu = p["lambda"][0], p["mu"][0]
         # flat row-major F = I + grad u, built per scalar component with
         # Python-float identity entries: no reshape-to-matrix and no array
-        # constants, so the AD graph stays pure elementwise arithmetic and
-        # the fused Pallas kernel can lower it (Mosaic rejects both the
-        # minor-dim reshape and captured array constants)
+        # constants, so the AD graph stays pure elementwise arithmetic
         Fc = tuple(
             gradu[k] + (1.0 if k % (d + 1) == 0 else 0.0)
             for k in range(d * d)

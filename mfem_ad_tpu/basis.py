@@ -2,7 +2,7 @@
 
 Host-side numpy tabulation (float64).  Shape tables ``phi [nq, nd]`` and
 ``dphi [nq, nd, dim]`` are constants captured by jitted assembly kernels —
-the TPU-native equivalent of MFEM's ``CalcShape``/``CalcDShape`` calls made
+the batched equivalent of MFEM's ``CalcShape``/``CalcDShape`` calls made
 per quadrature point inside the reference's element loop
 (/root/reference/src/ad_intg.hpp:119-154).
 

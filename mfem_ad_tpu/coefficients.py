@@ -2,7 +2,7 @@
 
 The reference's ``Evaluator`` (src/ad_native.hpp:51-135, ad_native.cpp:5-179)
 is a std::variant over {scalar, Vector, Matrix, Coefficient*, GridFunction*,
-QuadratureFunction*} dispatched per quadrature point.  TPU-native, that whole
+QuadratureFunction*} dispatched per quadrature point.  Batched, that whole
 mechanism collapses to: *evaluate every parameter source once into a dense
 ``[n_elem, n_qp, size]`` array* before assembly, and hand the energy function
 a per-qp slice.  Traced array parameters (e.g. the frozen latent psi_k, the

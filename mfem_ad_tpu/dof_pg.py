@@ -16,7 +16,7 @@ spaces must have identical element dof counts (dof_pg.hpp:46-48).
 Nodal weights: the reference uses ``fe.GetNodes()`` integration-point
 weights; here w_j = detJ(node_j) * wref_j with wref_j = ∫ φ_j the
 interpolatory (lumped/GLL) quadrature weight of node j — the well-defined
-TPU-native realization of nodal quadrature.
+batched realization of nodal quadrature.
 
 ``DofPGIntegrator`` implements the same integrator protocol as
 ``ADBlockIntegrator`` (residual/hess_state/hess_mult/diagonal/

@@ -1,6 +1,6 @@
 """Finite element spaces: global DOF numbering, boundary DOFs, projection.
 
-The TPU-native replacement for MFEM's ``FiniteElementSpace``/``GridFunction``
+The array-based replacement for MFEM's ``FiniteElementSpace``/``GridFunction``
 pair (used throughout the reference, e.g. ex1.cpp:47-48, ex4.cpp:99-102):
 a space is a set of *arrays* — an element-to-dof gather map ``edof
 [n_elem, n_dof]``, canonical node coordinates ``node_coords [ndof, dim]`` and
@@ -245,7 +245,7 @@ class FESpace:
         self._face_index = None
         self._relabel = None
         # L2 dofs are element-contiguous by construction: the dof gather is
-        # a pure reshape (no TPU gather op) regardless of mesh structure.
+        # a pure reshape (no gather op) regardless of mesh structure.
         self.grid = ("l2",)
 
     # ------------------------------------------------------------------
@@ -527,9 +527,8 @@ class FESpace:
 
         # ---- lexicographic relabeling on structured Cartesian meshes.
         # Dof ids become grid indices, so the assembly dof gather/scatter is
-        # expressible as strided slices / interior-dilated pads (TPU-fast;
-        # scalar gathers are ~100x slower than slices on TPU) — see
-        # integrator.py.  The id order matches the Cartesian element order
+        # expressible as strided slices / interior-dilated pads (contiguous
+        # reads, no index arrays) — see integrator.py.  The id order matches the Cartesian element order
         # (2D: e = j*nx + i; 3D: e = i*ny*nz + j*nz + k).
         # Structured TRIANGLE meshes (each Cartesian cell split along the
         # SW-NE diagonal) relabel too: the union of P_p Lagrange nodes over

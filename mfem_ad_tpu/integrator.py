@@ -1,6 +1,6 @@
 """Batched AD assembly: energy, residual, Jacobian from a point energy.
 
-TPU-native redesign of the reference's AD integrators
+Batched-tensor redesign of the reference's AD integrators
 (/root/reference/src/_ad_intg.hpp, src/ad_intg.hpp).  The reference's
 per-element virtual dispatch + per-qp dual-number loops become three batched
 tensor programs over ``[n_elem, n_qp]``:
@@ -20,7 +20,7 @@ the reference exactly (see adeval.py).
 
 The per-qp Hessian tensor ``Hq = w * d2f/dx2 [ne, nq, n, n]`` is the
 "assembled state" of a Newton iterate: computing it once and applying
-``v -> scatter(B (Hq (B^T v)))`` is partial assembly — the TPU-idiomatic
+``v -> scatter(B (Hq (B^T v)))`` is partial assembly — the accelerator-idiomatic
 replacement for assembling a global sparse matrix.
 
 All compute methods take the array bundle ``tables`` explicitly (defaulting
@@ -62,18 +62,16 @@ def qpmap(fn):
 # The per-qp energy Hessian Hq is symmetric (Schwarz), so the Newton state
 # read by EVERY Krylov matvec of a solve carries n(n-1)/2 redundant entries:
 # 16 -> 10 at n=4 (ex4/ex5 LVPP), 81 -> 45 at n=9 (3D elasticity).  The
-# matvec is HBM-bound (measured ~0.18 ms/apply at ex4 ref-3 on a v5e, round
-# 3), so storing the upper triangle [ne, nq, K], K = n(n+1)/2, and applying
-# it with static selector matmuls cuts the dominant traffic term ~1.6-1.8x.
+# matvec is memory-bound, so storing the upper triangle [ne, nq, K],
+# K = n(n+1)/2, cuts the dominant traffic term ~1.6-1.8x.
 # Matches the storage discipline of the reference's hot loop, which fills
 # only the symmetric half per qp (ad_native.cpp:211-230, ad_intg.hpp:
 # 260-334).
 #
-# The ASSEMBLY route keeps the full tensor: round 3 measured that a
-# triangle relayout inside the one-shot A = H @ W pass loses 1.5-2.6x (the
-# extraction is a minor-dim relayout of the whole intermediate, see the
-# W0/Wsym note below).  Here the relayout is paid ONCE per Newton direction
-# (hess_state) and repaid every Krylov iteration.
+# The ASSEMBLY route keeps the full tensor: a triangle relayout inside the
+# one-shot A = H @ W pass is a minor-dim relayout of the whole intermediate
+# (see the W0/Wsym note below).  Here the relayout is paid ONCE per Newton
+# direction (hess_state) and repaid every Krylov iteration.
 # ---------------------------------------------------------------------------
 
 
@@ -111,19 +109,15 @@ class SymHess:
     """Packed symmetric per-qp Hessian state: triangle PLANES [K, ne, nq]
     (K = n(n+1)/2, pair order (a, b), a <= b).
 
-    The plane-major layout is the one XLA NATURALLY materializes for the
-    jacfwd Hessian on TPU (measured round 4: the jitted state comes back
-    with ``major_to_minor=(2, 3, 1, 0)`` — (n, m) major, batch minor), so
-    both the state write and every matvec read are layout-native.  The
-    round-4 first attempt stored the triangle batch-major ``[ne, nq, K]``
-    and applied it with selector matmuls: on-chip it measured **0.29x**
-    (ex4) because each einsum/matmul against the batch-minor physical
-    layout relaid out the whole state per Krylov iteration — 196 ms of a
-    198 ms elast3d matvec was that relayout.  The plane-major unrolled-FMA
-    apply below measures ~2 ms on the same case (~100x).
+    The plane-major layout is the one XLA naturally materializes for the
+    jacfwd Hessian (the jitted state comes back (n, m) major, batch
+    minor), so both the state write and every matvec read are
+    layout-native.  A batch-major ``[ne, nq, K]`` triangle applied with
+    selector matmuls instead relays out the whole state on every Krylov
+    iteration; the plane-major unrolled-FMA apply below never does.
 
     Produced by ``hess_state(..., sym=True)`` (the Newton-state path,
-    forms.grad_state_raw); consumed natively by ``hess_mult`` (full-lane
+    forms.grad_state_raw); consumed natively by ``hess_mult`` (full-width
     elementwise FMA chains) and expanded once per Newton direction by
     ``diagonal``/``element_matrices``.  Registered as a pytree so it
     crosses jit/shard_map boundaries; the ELEMENT axis is dim 1 of the
@@ -172,16 +166,12 @@ def sym_state_default() -> bool:
 
 def _closed_enabled() -> bool:
     """Policy: use analytic gradient/Hessian overrides of built-in
-    energies when defined.  DEFAULT OFF — measured on the v5e (round 5,
-    tools/probe_closed2.py + bench.py A/B): the closed neo-Hookean
-    Hessian is 2.3-4.2x faster STANDALONE (it cuts the VPU FLOPs ~5-10x)
-    but the full assembly pass REGRESSES to 0.43x (1.77e8 -> 0.77e8
-    elem/s at the headline config) because XLA's layout assignment for
-    the jacfwd producer composes with the A = H @ W GEMM far better than
-    any hand-built H stack (the jnp.stack planes force a relayout of the
-    whole 151 MB intermediate).  The jacfwd(gradient_closed) hybrid and
-    the SoA plane form lose too (0.76x/0.63x).  MFEM_AD_TPU_CLOSED=1
-    opts in (useful off-TPU or for future XLA versions)."""
+    energies when defined.  DEFAULT OFF: the closed neo-Hookean Hessian
+    cuts the per-qp FLOPs ~5-10x, but its hand-built H stack forces a
+    relayout of the whole Hq intermediate that the jacfwd producer,
+    whose layout XLA assigns together with the A = H @ W GEMM, avoids.
+    No GPU measurement decides between them yet.  MFEM_AD_TPU_CLOSED=1
+    opts in."""
     return os.environ.get("MFEM_AD_TPU_CLOSED", "0") == "1"
 
 
@@ -192,7 +182,7 @@ def _dedup_elements(arr: np.ndarray) -> np.ndarray:
     ex1.cpp:35, ex4.cpp:78) the physical shape tables and static coefficient
     values are element-invariant; storing them [1, nq, ...] shrinks HBM
     residency and host->device transfer by a factor of n_elem and lets XLA
-    keep the shared table in VMEM across the whole element batch.
+    keep the shared table in fast on-chip memory across the element batch.
     """
     if arr.shape[0] > 1:
         scale = np.abs(arr).max() or 1.0
@@ -288,8 +278,8 @@ def _halo_perm_bwd(K: int):
 def _fast_gather(u, meta, vdim: int, nd: int):
     """Gather element dofs [ne, nd, vdim] without a gather op (or None).
 
-    TPU scalar gathers run ~100x below HBM bandwidth; L2 reshapes and
-    structured-H1 strided slices replace them entirely.
+    L2 reshapes and structured-H1 strided slices replace the generic
+    index gather entirely (contiguous reads, no index arrays).
     """
     if meta is None:
         return None
@@ -416,8 +406,8 @@ def _edof_inverse(edof: np.ndarray, nds: int) -> np.ndarray:
     flattened [ne*nd] element-value array (V = max dof valence), padded
     with the sentinel ne*nd (a zero slot appended by the consumer).
 
-    Converts the generic unstructured scatter-add — a TPU scatter op,
-    serialized per colliding index — into gather + sum over a static
+    Converts the generic unstructured scatter-add — a scatter op whose
+    colliding indices serialize — into gather + sum over a static
     valence axis (every output dof reads its incident element slots),
     which XLA lowers as a plain gather + reduction.
     """
@@ -479,10 +469,6 @@ class _PullbackEnergy(ADFunction):
     reference basis from geometry underlies MFEM's partial assembly
     (the reference's CalcPhysDShape bakes the geometry into B instead,
     ad_intg.hpp:119-154, which forces element-varying shape tensors).
-
-    Measured (tools/probe_unstructured.py, sloped_rectangle x8, 196k
-    triangles): the element-varying-B einsum assembly was 86 ms/pass;
-    see BENCH_SWEEP.md for the pulled-back rates.
     """
 
     def __init__(self, f, layout, dim: int):
@@ -696,8 +682,7 @@ class ADBlockIntegrator:
             "field": fieldtab,
         }
         # unstructured H1 spaces: transpose edof map for the gather+sum
-        # scatter (generic scatter-add is a serialized TPU scatter op;
-        # see _edof_inverse)
+        # scatter (see _edof_inverse)
         einv = {}
         for si, sp in enumerate(self.spaces):
             if self._gridmeta[si] is None:
@@ -706,16 +691,14 @@ class ADBlockIntegrator:
                 )
         self.tables["einv"] = einv
 
-        # ---- MXU matmul forms of the contractions (element-shared B only).
-        # Per-qp einsums over tiny (nd, sd) dims lower to lane-starved VPU
-        # code on TPU; folding (q, v, s) into one contraction axis turns
+        # ---- matmul forms of the contractions (element-shared B only).
+        # Per-qp einsums over tiny (nd, sd) dims lower to small, poorly
+        # vectorized loops; folding (q, v, s) into one contraction axis turns
         #   x = B^T u, r = B g, A = B H B^T
         # into single large GEMMs against precomputed factors:
         #   R_s  [nq*w_s, nde_s]        with R[(q,a), i] = Bf[q, i, a]
         #   W_st [nq*w_s*w_t, nde_s*nde_t] = Bf_s (x) Bf_t   (A = Hflat @ W)
         # where Bf is B with the vdim block structure made explicit.
-        # Measured: the A = B H B^T einsum path is ~75x slower than Hflat @ W
-        # on a v5e at Q1/2D/vdim=2.
         if all(b.shape[0] == 1 for b in B):
             nb = len(spaces)
             Bf_np = []
@@ -739,22 +722,23 @@ class ADBlockIntegrator:
             # large GEMM — the vdim axes ride the GEMM M dimension.
             #   R0_s [nq*sd_s, nd_s]               (interp/residual factor)
             #   W0_st [nq*sd_s*sd_t, nd_s*nd_t]    (A = Hblk @ W0)
-            # Routing is by a padded-MXU cost model, not raw FLOPs: the MXU
-            # tiles K and N at 128 lanes, so a blocked GEMM whose K/N fall
-            # far below a tile can cost MORE than the full-Bf GEMM despite
-            # vdim^2 fewer FLOPs (measured: W0 at Q1/2D/vdim=2 is 1.65x
-            # SLOWER — K=36, N=16 vs the full W's K=144, N=64).  A factor
-            # is only installed where the model says it wins; the compute
-            # methods prefer blocked > full > einsum among installed keys.
-            def mxu_cost(m_mult, k, n):
+            # Routing is by a padded-tile cost model, not raw FLOPs: with
+            # K and N rounded up to 128-wide tiles, a blocked GEMM whose
+            # K/N fall far below a tile can cost MORE than the full-Bf GEMM
+            # despite vdim^2 fewer FLOPs (W0 at Q1/2D/vdim=2: K=36, N=16 vs
+            # the full W's K=144, N=64).  A factor is only installed where
+            # the model says it wins; the compute methods prefer blocked >
+            # full > einsum among installed keys.  The model's gates have
+            # no GPU measurement yet.
+            def tile_cost(m_mult, k, n):
                 ru = lambda x: -(-x // 128) * 128  # noqa: E731
                 return m_mult * ru(k) * ru(n)
 
             R0 = []
             for s in range(nb):
                 v, nd, sdl = self.vdim[s], self.nd[s], self.sd[s]
-                blocked = mxu_cost(v, self.nq * sdl, nd)
-                full = mxu_cost(1, self.nq * sdl * v, nd * v)
+                blocked = tile_cost(v, self.nq * sdl, nd)
+                full = tile_cost(1, self.nq * sdl * v, nd * v)
                 if v > 1 and blocked >= full:
                     R0 = None  # one flag for all spaces: keep keys uniform
                     break
@@ -783,24 +767,18 @@ class ADBlockIntegrator:
                 for s in range(nb)
             )
             # Two contraction factors compete per (test, trial) pair; the
-            # padded-MXU cost model installs W0 only where it beats the
+            # padded-tile cost model installs W0 only where it beats the
             # full-W GEMM:
             #   W0   blocked b0 (x) b0 — vdim axes ride the GEMM M dim; on
             #        the symmetric diagonal pair (s == t_) only the upper
             #        vdim-block triangle is contracted and the lower is the
-            #        transpose (M multiplier vs*vt -> vs(vs+1)/2, measured
-            #        1.27x at p2/3D).
-            #   W    full Bf (x) Bf (also kept for the Pallas kernel).
-            # A third candidate was measured and REJECTED (round 3): a
-            # symmetry-compacted full factor A = Hsym @ Wsym over the
-            # (q, a <= b) Hessian triangle (K = nq*w(w+1)/2, e.g. 144->90
-            # = one 128-lane MXU tile instead of two at Q1/2D/vdim=2).
-            # On a v5e it LOSES 1.5-2.6x to the full-W GEMM because the
-            # triangle extraction is a minor-dim relayout: a static take
-            # lowers to a TPU gather (66M vs 175M elem/s at the headline
-            # config) and even contiguous lane slices + concat reach only
-            # 115M — the GEMM is ~10% of the pass, so no K-padding win
-            # can repay a relayout of the whole Hq intermediate.
+            #        transpose (M multiplier vs*vt -> vs(vs+1)/2).
+            #   W    full Bf (x) Bf.
+            # A third candidate was rejected: a symmetry-compacted full
+            # factor A = Hsym @ Wsym over the (q, a <= b) Hessian triangle
+            # (K = nq*w(w+1)/2).  Its triangle extraction is a minor-dim
+            # relayout of the whole Hq intermediate, which costs more than
+            # the smaller GEMM saves.
             W0d = {}
             for s in range(nb):
                 for t_ in range(nb):
@@ -812,18 +790,18 @@ class ADBlockIntegrator:
                     diag = s == t_
                     if self.nq * sds * sdt * nds * ndt > 32_000_000:
                         continue  # fall back to the einsum path
-                    # vdim-mirror only pays at vdim >= 3 (9 -> 6 rows);
-                    # at vdim=2 the stack/concat relayout outweighs the
-                    # 4 -> 3 row cut (measured 0.71x at p2/2D on a v5e)
+                    # vdim-mirror only at vdim >= 3 (9 -> 6 rows); at
+                    # vdim=2 the stack/concat relayout outweighs the
+                    # 4 -> 3 row cut
                     m_mult = (
                         vs * (vs + 1) // 2
                         if diag and vs >= 3 and not self.vector_fn
                         else vs * vt
                     )
-                    blocked = mxu_cost(m_mult, self.nq * sds * sdt,
-                                       nds * ndt)
+                    blocked = tile_cost(m_mult, self.nq * sds * sdt,
+                                        nds * ndt)
                     full_fits = self.nq * ws * wt * ns * nt <= 16_000_000
-                    if full_fits and blocked >= mxu_cost(
+                    if full_fits and blocked >= tile_cost(
                         1, self.nq * ws * wt, ns * nt
                     ):
                         continue  # the full-W GEMM tiles better
@@ -855,8 +833,8 @@ class ADBlockIntegrator:
                     dtype=dtype,
                 )
             self.tables["W0p"] = W0pd
-            # The full-Bf W factor survives only for the Pallas reference
-            # kernel (ops/fused_jacobian.py), which consumes it directly.
+            # Full-Bf W factor: the A = Hflat @ W route of element_matrices
+            # for pairs where the blocked W0 factor was not installed.
             Wd = {}
             for s in range(nb):
                 for t_ in range(nb):
@@ -1059,9 +1037,8 @@ class ADBlockIntegrator:
         ``fast=True`` (single-device tables) uses the gather-free paths:
         L2 dofs are element-contiguous (pure reshape); structured H1 dofs
         are lexicographic, so each element node (a, b[, c]) is a strided
-        slice of the dof grid.  TPU scalar gathers run ~100x slower than
-        slices, so this is the difference between HBM-bound and
-        gather-bound assembly.  ``fast=False`` (sharded tables, where each
+        slice of the dof grid: contiguous reads instead of an index
+        gather.  ``fast=False`` (sharded tables, where each
         device holds an element subset) uses the generic edof gather.
         """
         t = tables or self.tables
@@ -1182,8 +1159,8 @@ class ADBlockIntegrator:
             return H * t["w"][..., None, None]
         if callable(self.f.hessian_closed) and _closed_enabled():
             # analytic Hessian of a built-in energy (golden-tested vs the
-            # AD form): the AD stage is VPU-bound, so the ~5-10x FLOP cut
-            # is a direct assembly-throughput win (VERDICT r4 #1)
+            # AD form): it cuts the per-qp FLOPs ~5-10x; off by default,
+            # see _closed_enabled
             H = qpmap(self.f.hessian_closed)(x, p)
         else:
             H = qpmap(jax.jacfwd(jax.grad(self.f.energy)))(x, p)
@@ -1193,8 +1170,8 @@ class ADBlockIntegrator:
         pairs = [(a, b) for a in range(n) for b in range(a, n)]
         # plane-major stack: each H[:, :, a, b] is a plane XLA already
         # holds contiguously ((n, m)-major output layout), so this is the
-        # no-relayout packing — the minor-dim take it replaces measured
-        # 196 ms/matvec of relayout at elast3d (see SymHess docstring)
+        # no-relayout packing — a minor-dim take would relay out the
+        # whole state (see SymHess docstring)
         planes = jnp.stack([H[:, :, a, b] for a, b in pairs], axis=0)
         return SymHess(planes * t["w"][None], n)
 
@@ -1213,7 +1190,7 @@ class ADBlockIntegrator:
         """Matrix-free J v: scatter(B (Hq (B^T v))).
 
         ``SymHess`` state applies its triangle planes as unrolled
-        full-lane elementwise FMA chains over the [ne, nq] batch —
+        full-width elementwise FMA chains over the [ne, nq] batch —
         layout-native for the plane-major state (no per-iteration
         relayout, see the SymHess docstring), n(n+1)/2 state reads per
         qp instead of n^2.
@@ -1268,48 +1245,12 @@ class ADBlockIntegrator:
 
     def element_jacobians(self, ublocks, fields=None, tables=None,
                           fast: bool = True):
-        """Dense element Jacobians A_e [ne, nde, nde] of the (0, 0) block.
-
-        Routing (round 5): when the energy carries hand-tiled closed-form
-        Hessian entries (``hessian_closed_entries``, the whole built-in
-        library) and the tables admit the fused kernel, the TPU f32 path
-        goes through the hand-tiled Pallas kernel — measured 5.68e8
-        elem/s at the p1/2D headline vs 1.77e8 for the two-stage XLA
-        route (ops/fused_jacobian.py _kernel_tile).  Everything else
-        takes the two-stage XLA path (hess_state + element_matrices),
-        which beats every OTHER kernel form tried: the vmap-closed and
-        generic-HVP Pallas variants measured 7.5M/11.4M elem/s
-        (Mosaic relayout pathology), and XLA's fused jacfwd beats the
-        unstacked closed form outside a kernel (BENCH_SWEEP r5).
-        MFEM_AD_TPU_FUSED=0 disables the kernel route; =1 forces it even
-        without closed entries (the slow HVP variant, for A/B)."""
-        import os as _os
-
-        from .ops.fused_jacobian import (
-            element_jacobian_via_pallas,
-            supports_fused,
-        )
-
-        _fused_env = _os.environ.get("MFEM_AD_TPU_FUSED")
-        if (
-            not fields
-            and _fused_env != "0"
-            and supports_fused(self)
-            and jax.default_backend() == "tpu"
-            and (
-                _fused_env == "1"
-                or (
-                    getattr(self.f, "hessian_closed_entries", None)
-                    is not None
-                    and self.dtype == jnp.float32
-                )
-            )
-        ):
-            return element_jacobian_via_pallas(self, ublocks, tables=tables)
-        # 3D/W0 configs assemble through the _elmat_planar batched-GEMM
-        # route (element_matrices dispatches on the W0p table): the
-        # Hessian is contracted in its natural (n, m)-major layout, no
-        # (ne, nq)-batch transpose.
+        """Dense element Jacobians A_e [ne, nde, nde] of the (0, 0) block:
+        the per-qp Hessian state (``hess_state``) contracted by
+        ``element_matrices``.  3D/W0 configs assemble through the
+        _elmat_planar batched-GEMM route (element_matrices dispatches on
+        the W0p table): the Hessian is contracted in its natural
+        (n, m)-major layout, no (ne, nq)-batch transpose."""
         Hq = self.hess_state(ublocks, fields, tables, fast)
         return self.element_matrices(Hq, 0, 0, tables)
 
@@ -1317,31 +1258,30 @@ class ADBlockIntegrator:
         """Plane-major assembly: one BATCHED GEMM whose batch axis is the
         (vdim-pair, shape-derivative-pair) plane index, contracting only
         over qp — the per-qp Hessian is consumed in its natural
-        (n, m)-major layout (tools/probe_layout.py: jitted AD states come
-        back plane-major), with NO transpose of the (ne, nq) batch into
-        the GEMM K dimension.  Full tensors slice/transpose leading plane
-        dims (folds into the producer layout); SymHess states expand by a
+        (n, m)-major layout (jitted AD states come back plane-major),
+        with NO transpose of the (ne, nq) batch into the GEMM K
+        dimension.  Full tensors slice/transpose leading plane dims
+        (folds into the producer layout); SymHess states expand by a
         leading-dim plane gather.
 
-        Measured on the v5e at p1/3D (tools/probe_3d.py): ~1.2x over the
-        blocked-W0 route, whose ``Hp`` relayout moves the whole state.
-        Gated to 3D (sd >= 3): in 2D nq is small (9 at p1), the batched
-        GEMM's nq->128 K-padding loses, and the blocked route already
-        wins there.  Returns None when inapplicable (no W0p factor, 2D,
-        or disabled via MFEM_AD_TPU_PLANAR_ASM=0).
+        It skips the blocked-W0 route's ``Hp`` relayout of the whole
+        state.  Gated to 3D (sd >= 3): in 2D nq is small (9 at p1) and
+        the batched GEMM's short K loses to the blocked route.  Returns
+        None when inapplicable (no W0p factor, 2D, or disabled via
+        MFEM_AD_TPU_PLANAR_ASM=0).
         """
         key = f"{s}_{t_}"
         if key not in t.get("W0", {}):
             return None
         sds, sdt = self.sd[s], self.sd[t_]
         ne, nq = _ne_nq(t)
-        # Measured gate (v5e): the planar batched GEMM does sds*sdt/
-        # (mirror savings) MORE GEMM FLOPs than the blocked-W0 route but
-        # skips the whole-state Hp relayout.  At p1/3D (nq=27, GEMM ~3%
-        # of the pass) that nets +17% (8.76M -> 10.2M elem/s); at
-        # p>=2/3D (nq >= 64, GEMM-bound, 34-83% MFU) the extra FLOPs
-        # lose 12-19% (measured at both nq=64 and nq=125).  Gate: 3D
-        # and nq <= 32.  MFEM_AD_TPU_PLANAR_ASM=1/0 forces on/off.
+        # Gate: the planar batched GEMM does sds*sdt/(mirror savings)
+        # MORE GEMM FLOPs than the blocked-W0 route but skips the
+        # whole-state Hp relayout.  At p1/3D (nq=27) the GEMM is a small
+        # share of the pass and the relayout dominates; at p>=2/3D
+        # (nq >= 64) the pass is GEMM-bound and the extra FLOPs lose.
+        # Gate: 3D and nq <= 32, not yet re-derived from GPU cells.
+        # MFEM_AD_TPU_PLANAR_ASM=1/0 forces on/off.
         force = os.environ.get("MFEM_AD_TPU_PLANAR_ASM")
         if force == "0":
             return None
@@ -1406,7 +1346,8 @@ class ADBlockIntegrator:
         if key in t.get("W0", {}):
             # Blocked-W GEMM: vdim_s*vdim_t fewer FLOPs than the full
             # Bf (x) Bf contraction (the vdim axes become GEMM rows).
-            # HIGH (bf16x3, ~1e-6 rel) suffices for assembled Jacobians:
+            # HIGH (TF32 on the GPU's tensor cores, ~1e-3 rel) suffices
+            # for assembled Jacobians:
             # Newton accuracy is set by the residual path (kept at the
             # session default, HIGHEST), and inexact Jacobians only affect
             # the convergence rate.  f64 inputs ignore this hint.
@@ -1443,8 +1384,7 @@ class ADBlockIntegrator:
                 # the upper vdim-block triangle is contracted
                 # (vs*vt -> vs(vs+1)/2 GEMM rows) and
                 # A[(w,j),(v,i)] = A[(v,i),(w,j)] fills the rest.
-                # Measured on a v5e: 1.22-1.38x at vdim=3 (3D p1-p3);
-                # at vdim=2 the relayout loses (0.71x) — gated above.
+                # At vdim=2 the relayout loses — gated above.
                 pairs = [
                     (a, b) for a in range(vs) for b in range(a, vs)
                 ]

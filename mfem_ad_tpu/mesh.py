@@ -52,8 +52,8 @@ class Mesh:
     # Structured-grid descriptor for Cartesian quad/hex meshes:
     # ("cart2d", nx, ny, sx, sy) or ("cart3d", nx, ny, nz, sx, sy, sz).
     # Enables lexicographic dof numbering + the slice-based (gather-free)
-    # assembly fast path in integrator.py — TPU gathers of scalars are
-    # ~100x slower than strided slices.
+    # assembly fast path in integrator.py (strided slices instead of an
+    # index gather).
     structured: tuple | None = field(default=None, compare=False)
 
     @property
@@ -269,9 +269,8 @@ def make_cartesian_3d(
 def spatial_sort(m: Mesh) -> Mesh:
     """Reorder elements along a Morton (Z-order) curve of their centroids.
 
-    Unstructured assembly cost on TPU is dominated by the edof gather and
-    the valence-transpose scatter (BENCH_SWEEP round 4: 1.95 + 4.65 ms of
-    a 4.6/7.0 ms pass at 196k triangles); uniform refinement emits
+    Unstructured assembly cost can be dominated by the edof gather and
+    the valence-transpose scatter; uniform refinement emits
     children grouped BY CHILD TYPE (4 parent-sized tiles), so consecutive
     elements touch dofs a quarter-mesh apart.  Morton ordering makes
     consecutive elements neighbors, and FESpace's first-touch dof relabel

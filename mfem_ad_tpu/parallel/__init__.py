@@ -1,6 +1,6 @@
 """Multi-device parallelism: element-sharded assembly over a device mesh.
 
-The TPU-native replacement for the reference's MPI domain decomposition
+The JAX replacement for the reference's MPI domain decomposition
 (ParMesh + hypre, SURVEY.md §2.8).  Two models:
 
 - ``ShardedForm``: elements sharded with ``shard_map``, dof vectors

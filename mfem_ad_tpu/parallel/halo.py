@@ -4,7 +4,7 @@ Round 4 (VERDICT r3 #2).  ``parallel.ShardedForm`` replicates dof vectors
 and completes every assembly with a full-length [ndof] ``psum`` — correct,
 but every Krylov iteration pays an O(ndof) ICI all-reduce and O(ndof)
 memory per device.  This form implements the partition-boundary exchange SURVEY
-§2.8 prescribes (the TPU realization of hypre's true-dof partitioning that
+§2.8 prescribes (the JAX realization of hypre's true-dof partitioning that
 the reference inherits, tools.hpp:179-198):
 
 - **Elements** are banded along the element-major grid axis (the same

@@ -25,17 +25,11 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map as _shard_map  # jax >= 0.7 stable API
+from jax import shard_map as _shard_map
 
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
 
-except ImportError:  # pragma: no cover
-    from jax.experimental.shard_map import shard_map as _sm
-
-    def shard_map(f, mesh, in_specs, out_specs):
-        return _sm(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
+def shard_map(f, mesh, in_specs, out_specs):
+    return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs)
 
 
 _REPLICATED_TABLE_KEYS = ("R", "R0", "D0", "W", "W0", "W0p", "einv")

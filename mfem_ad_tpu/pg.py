@@ -1,6 +1,6 @@
 """Proximal Galerkin / LVPP layer: entropies, PG functional, outer loop.
 
-TPU-native redesign of /root/reference/src/pg.{hpp,cpp}:
+JAX redesign of the reference's src/pg.{hpp,cpp}:
 
 - ``PGStepSizeRule``  — step-size schedules (pg.hpp:10-34, pg.cpp:4-54).
 - entropy zoo        — dual (conjugate) entropies E* as ADFunctions with
@@ -238,7 +238,7 @@ def pg_block_preconditioner(form, state):
     (u, psi) saddle system.  Structurally mirrors PGPreconditioner
     (pg.hpp:378-504): a stiffness-block solve and a (negated)
     entropy-weighted mass block — realized here as absolute-value Jacobi,
-    the AMG-free TPU substitute."""
+    the AMG-free substitute."""
     d = form.grad_diag(state)
     safe = jnp.where(jnp.abs(d) < 1e-30, 1.0, jnp.abs(d))
     return lambda x: x / safe

@@ -161,7 +161,7 @@ def test_diff_energy():
 
 
 class TestLogdet:
-    """Custom-JVP logdet/inv_t (the Mosaic-safe hyperelasticity form) must
+    """Custom-JVP logdet/inv_t (the elementwise hyperelasticity form) must
     agree with jnp.log(jnp.linalg.det(.)) to machine precision through
     every AD composition the framework uses (grad, jacfwd∘grad,
     jacfwd∘jacfwd∘grad, jacrev∘grad)."""

@@ -90,7 +90,7 @@ def test_blocked_factors_match_einsum_route(dim, vdim):
         energy = DiffusionEnergy(dim)
     intg = ADBlockIntegrator(energy, [sp], [mode])
     t = intg.tables
-    # routing is shape-dependent (padded-MXU cost model); whatever factor
+    # routing is shape-dependent (padded-tile cost model); whatever factor
     # set was installed must reproduce the plain einsum route exactly
     assert "R" in t and "D0" in t
 
@@ -122,12 +122,11 @@ def test_blocked_factors_match_einsum_route(dim, vdim):
 
 
 def test_blocked_factor_routing_cost_model():
-    """The padded-MXU cost model must keep the full-W GEMM at the headline
-    Q1/2D/vdim=2 config (measured 1.65x faster there, even against the
-    mirrored vdim-triangle M = 3) and switch to the blocked W0 factor
-    where K/N fill MXU tiles (p2+/vector or 3D), where the diagonal pair
-    contracts only the upper vdim-block triangle (measured 1.27x at
-    p2/3D on a v5e)."""
+    """The padded-tile cost model must keep the full-W GEMM at the
+    headline Q1/2D/vdim=2 config (even against the mirrored vdim-triangle
+    M = 3) and switch to the blocked W0 factor where K/N fill 128-wide
+    tiles (p2+/vector or 3D), where the diagonal pair contracts only the
+    upper vdim-block triangle."""
     from mfem_ad_tpu.ad import NeoHookeanEnergy
 
     # headline config: tiny K/N -> full W, no W0, no R0

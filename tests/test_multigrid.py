@@ -1,4 +1,4 @@
-"""Geometric multigrid (the TPU BoomerAMG substitute, multigrid.py)."""
+"""Geometric multigrid (the BoomerAMG substitute, multigrid.py)."""
 
 import numpy as np
 

@@ -2,7 +2,7 @@
 distributed-memory MPI semantics (Mpi::Init ex4.cpp:33-37, hypre
 collectives): two OS processes, each owning 4 virtual CPU devices, joined
 by ``jax.distributed`` into one 8-device mesh; ``ShardedForm`` assembly
-spans the process boundary (the multi-host/DCN path on real TPU pods)."""
+spans the process boundary (the multi-host path of a cluster)."""
 
 import os
 import socket

@@ -559,8 +559,8 @@ def test_gradient_obstacle_ldu_direction_sigma_direct():
 def test_inv_f32_accel_sweep(monkeypatch):
     """The blocked Gauss-Jordan SWEEP inversion (solvers._inv_f32_accel
     above the leaf size) must match LAPACK, including at a size that is
-    not a block multiple (identity padding) — it is the device-side,
-    bounded-memory replacement for LU above libtpu's ~10k vmem limit."""
+    not a block multiple (identity padding) — the device-side,
+    bounded-memory inversion above the leaf size."""
     from mfem_ad_tpu import solvers as S
 
     rng = np.random.default_rng(0)
@@ -619,8 +619,7 @@ def test_sigma_direct_matvec_fallback(monkeypatch):
 @pytest.mark.slow
 def test_gradient_obstacle_lvpp_schur_gmg_e2e():
     """ex5 end-to-end on its SHIPPED solver path (schur -> LDU-FGMRES with
-    the direct dual-Schur preconditioner + hp-GMG primal) — previously the
-    LDU path had solve-level coverage only on the real TPU runs."""
+    the direct dual-Schur preconditioner + hp-GMG primal)."""
     from mfem_ad_tpu.models import gradient_obstacle
 
     res, pb = gradient_obstacle.solve(
